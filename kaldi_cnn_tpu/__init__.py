@@ -1,10 +1,10 @@
-"""kaldi_cnn_tpu — a TPU-native hybrid ASR framework.
+"""kaldi_cnn_tpu — a JAX hybrid ASR framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 hwaranlee/kaldi-cnn (Kaldi + nnet2 CNN acoustic models):
 
-- ``features``  : fbank/MFCC extraction (framing + STFT-as-matmul + mel),
-                  jnp reference + fused Pallas kernels.  [ref: src/feat/]
+- ``features``  : fbank/MFCC extraction (framing + rfft + mel), plain
+                  jnp on every backend.  [ref: src/feat/]
 - ``lang``      : lexicon/ARPA -> WFSTs, HMM topology, transition model,
                   phonetic decision trees, HCLG graph build. [ref: src/{fstext,hmm,tree,lm}/]
 - ``gmm``       : diagonal-GMM acoustic models for the bootstrap
@@ -13,14 +13,15 @@ hwaranlee/kaldi-cnn (Kaldi + nnet2 CNN acoustic models):
                   Maxpool3D, AffinePreconditionedOnline/NG-SGD, Pnorm,
                   Normalize, Softmax) as pure-functional JAX modules.
                   [ref: src/nnet2/]
-- ``ops``       : Pallas TPU kernels (fused fbank, conv/maxpool over
-                  time-freq patches, batched Viterbi). [ref: src/cudamatrix/]
 - ``decode``    : WFST beam-search decoding — host lattice decoder +
                   batched on-device Viterbi.  [ref: src/decoder/]
 - ``train``     : egs pipeline, NG-SGD trainer, periodic model averaging,
                   checkpointing.  [ref: steps/nnet2/train_*.sh]
 - ``parallel``  : jax.sharding Mesh / pjit data-parallel scaling in place
                   of Kaldi's shell scheduler.  [ref: utils/parallel/]
+- ``core``      : config, logging, RNG, mesh helpers, and the backend
+                  policy + compile cache (core/backend.py).
+                  [ref: src/base/, src/cudamatrix/cu-device.cc]
 - ``io``        : Kaldi-compatible ark/scp Table I/O + wave reader.
                   [ref: src/util/kaldi-table.h]
 - ``recipes``   : end-to-end corpus recipes (synthetic yesno/rm/wsj-style).

@@ -586,16 +586,10 @@ def cmd_run_recipe(argv: List[str]) -> int:
     p = argparse.ArgumentParser(prog="run-recipe")
     p.add_argument("recipe", choices=["yesno", "rm", "wsj", "swbd",
                                       "librispeech"])
-    p.add_argument("--pallas", action="store_true")
     args = p.parse_args(argv)
     import importlib
     mod = importlib.import_module(f"kaldi_cnn_tpu.recipes.{args.recipe}")
-    kw = {}
-    if args.recipe in ("yesno",):
-        kw["use_pallas_features"] = args.pallas
-    elif args.recipe == "wsj":
-        kw["use_pallas"] = args.pallas
-    res = mod.run(**kw)
+    res = mod.run()
     print(res)
     return 0
 
@@ -640,6 +634,8 @@ VERBS.update(TRAIN_VERBS)
 
 
 def main(argv: List[str] = None) -> int:
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)

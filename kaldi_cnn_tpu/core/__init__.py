@@ -1,6 +1,6 @@
 """Core runtime: config, logging/metrics, RNG discipline, mesh helpers.
 
-TPU-native replacement for Kaldi's ``src/base/`` (logging, kaldi-error.h)
+JAX replacement for Kaldi's ``src/base/`` (logging, kaldi-error.h)
 and ``src/util/parse-options.{h,cc}`` (ParseOptions flag system).
 """
 

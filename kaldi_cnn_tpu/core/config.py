@@ -1,6 +1,6 @@
 """Dataclass-based hierarchical config with CLI override.
 
-TPU-native replacement for Kaldi's three-tier flag system
+JAX replacement for Kaldi's three-tier flag system
 (ref: src/util/parse-options.{h,cc} ``ParseOptions::Register``,
 utils/parse_options.sh, conf/*.conf).  Option *names* mirror the
 reference where parity matters (``beam``, ``lattice_beam``,

@@ -147,7 +147,12 @@ def run_shell_array(cmd: Sequence[str] | str, n: int, name: str,
     """Shell flavor of the contract: every occurrence of the literal
     ``JOB`` in cmd is replaced by the 1-based job index, each job runs
     as a subprocess (run.pl's fork model), logs land in
-    ``log_dir/name.JOB.log``.  Raises JobFailure on any nonzero exit."""
+    ``log_dir/name.JOB.log``.  Raises JobFailure on any nonzero exit.
+
+    Up to ``max_jobs`` commands run at once (default: all n).  Commands
+    that open the GPU must run with ``max_jobs=1`` per card: a JAX
+    process reserves most of the card's memory when it starts, so a
+    second one on the same card fails for want of memory."""
     ld = Path(log_dir)
     ld.mkdir(parents=True, exist_ok=True)
 

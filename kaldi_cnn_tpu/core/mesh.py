@@ -1,10 +1,12 @@
 """Device mesh + sharding helpers.
 
-TPU-native replacement for Kaldi's shell-scheduler parallelism
+JAX replacement for Kaldi's shell-scheduler parallelism
 (ref: utils/parallel/{run.pl,queue.pl}, SURVEY.md §2.2/§2.3): instead of
 N independent processes synchronized through files, we build a
 ``jax.sharding.Mesh`` over the available devices and annotate arrays
-with ``NamedSharding``; XLA inserts the ICI/DCN collectives.
+with ``NamedSharding``; XLA inserts the collectives.  The devices of one
+host are joined all to all, so the mesh is shaped by the algorithm
+alone (devices in ``jax.devices()`` order).
 
 Axes:
   - ``data``  : utterance/minibatch data parallelism (the reference's

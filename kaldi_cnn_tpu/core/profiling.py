@@ -2,7 +2,7 @@
 
 The reference's profiling is CuDevice::AccuProfile (cumulative time per
 CUDA function, printed at exit; src/cudamatrix/cu-device.cc) plus ad hoc
-base/timer.h timers.  The TPU-native equivalents:
+base/timer.h timers.  The JAX equivalents:
 
   - ``accu_profile`` / ``print_profile``: the AccuProfile pattern for
     host-side stages (feature extraction, graph build, decode).

@@ -1,10 +1,10 @@
 """Decoding: compiled graphs, host Viterbi (align + best path),
-batched TPU Viterbi, lattices, scoring/WER.
+batched on-device beam search, lattices, scoring/WER.
 
 Re-design of src/decoder/ (FasterDecoder, LatticeFasterDecoder) and
 src/bin/compute-wer.cc.  The host decoder is the correctness baseline;
-the TPU path (ops/viterbi_pallas, decode/tpu_decoder) batches token
-passing on-device (SURVEY.md §7 step 8).
+the device decoders (decode/topk_decoder, and the dense
+decode/tpu_decoder) batch token passing on-device (SURVEY.md §7 step 8).
 """
 
 from kaldi_cnn_tpu.decode.graph import CompiledGraph

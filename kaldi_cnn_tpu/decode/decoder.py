@@ -6,7 +6,7 @@ ProcessNonemitting token passing with beam + max-active pruning), but
 vectorized: each frame relaxes ALL emitting arcs with numpy gathers and
 a stable-sort group-min instead of a hash map of tokens.  Used for
 forced alignment (training graphs) and as the correctness baseline for
-the batched TPU decoder.
+the batched device decoders.
 
 Backpointers form a shared trace tree (token passing): each token holds
 an index into flat arrays (prev, ilabel, olabel), so best-path recovery

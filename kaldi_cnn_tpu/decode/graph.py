@@ -2,7 +2,7 @@
 
 The reference's decoders walk OpenFst arc iterators state-by-state
 (ref: src/decoder/lattice-faster-decoder.cc ProcessEmitting).  For
-vectorized (numpy host) and batched (TPU) token passing we pre-pack the
+vectorized (numpy host) and batched (device) token passing we pre-pack the
 graph into flat arc arrays split by emitting (ilabel = transition-id >
 0) vs epsilon arcs, with pdf-ids resolved per arc so the inner loop is
 pure gathers.

@@ -1,6 +1,6 @@
-"""Batched TPU Viterbi beam search over CSR-packed HCLG.
+"""Batched dense on-device Viterbi beam search over CSR-packed HCLG.
 
-The TPU-native re-design of src/decoder/lattice-faster-decoder.cc
+A JAX re-design of src/decoder/lattice-faster-decoder.cc
 (and faster-decoder.cc): the reference's per-frame hash-map token
 passing (ProcessEmitting / ProcessNonemitting, scalar CPU code) becomes
 dense vectorized relaxation entirely on device, batched over
@@ -19,7 +19,7 @@ unwound on host — O(path length), negligible.
 
 Acoustic scoring stays on device: the model's posteriors feed straight
 into the scan without a host round-trip (the asymmetry SURVEY.md §3.4
-says the TPU build must erase).
+says the device build must erase).
 
 Scaling: costs are dense [B, S]; for multi-chip decoding the batch
 dimension shards over the ``data`` mesh axis (per-utterance

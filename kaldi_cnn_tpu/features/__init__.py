@@ -1,12 +1,11 @@
-"""Feature extraction: framing, STFT(-as-matmul), mel, fbank/MFCC, CMVN,
-deltas, splicing.
+"""Feature extraction: framing, STFT, mel, fbank/MFCC, CMVN, deltas,
+splicing.
 
-TPU-native replacement for Kaldi's ``src/feat/`` (feature-window.cc,
+JAX replacement for Kaldi's ``src/feat/`` (feature-window.cc,
 feature-fbank.cc, feature-mfcc.cc, mel-computations.cc,
-feature-functions.cc).  The jnp pipeline in ``functional.py`` is the
-reference implementation; the fused Pallas kernel lives in
-``kaldi_cnn_tpu.ops.fbank_pallas`` and is golden-tested against it
-(SURVEY.md §4 GPU-vs-CPU oracle pattern).
+feature-functions.cc).  The jnp pipeline in ``functional.py`` runs on
+every backend (rfft via the backend's FFT) and is golden-tested against
+a float64 numpy reference.
 """
 
 from kaldi_cnn_tpu.features.functional import (

@@ -2,15 +2,15 @@
 
 XLA compiles per shape; utterances have arbitrary lengths.  The
 reference never hits this (CPU, frame-at-a-time loops:
-src/featbin/compute-mfcc-feats.cc), but on TPU per-shape compilation of
-an eager pipeline costs seconds per utterance.  TPU-first answer
-(SURVEY.md §1 'static shapes'): pad every waveform up to a bucket
+src/featbin/compute-mfcc-feats.cc), but per-shape compilation of an
+eager pipeline costs seconds per utterance.  The answer (SURVEY.md §1
+'static shapes'): pad every waveform up to a bucket
 boundary, jit ONE function per (bucket length), slice the valid frames
 off the result.  A handful of buckets covers a corpus; everything after
 warmup is a cache hit.
 
-``device='cpu'`` pins extraction to host CPU — the right choice inside
-the GMM bootstrap where features are consumed host-side anyway.
+Extraction runs on JAX's default device; ``device='cpu'`` pins it to
+the host CPU.
 """
 
 from __future__ import annotations
@@ -32,13 +32,9 @@ class FeatureExtractor:
         opts=None,
         bucket_seconds: float = 1.0,
         device: Optional[str] = None,      # None=default backend, or 'cpu'
-        use_pallas: Optional[bool] = None,  # None = Pallas on TPU backend
         deltas_order: int = 0,
         deltas_window: int = 2,
     ):
-        from kaldi_cnn_tpu.ops.common import resolve_pallas
-        use_pallas = resolve_pallas(use_pallas)
-        self.use_pallas = use_pallas
         if opts is None:
             opts = F.MfccOptions() if kind == "mfcc" else F.FbankOptions()
         self.kind = kind
@@ -47,12 +43,7 @@ class FeatureExtractor:
         self.deltas_order = deltas_order
         self.deltas_window = deltas_window
         self._device = jax.devices(device)[0] if device else None
-        if use_pallas:
-            from kaldi_cnn_tpu.ops import fbank_pallas as P
-            self._fn = P.mfcc_pallas if kind == "mfcc" else P.fbank_pallas
-        else:
-            self._fn = (F.compute_mfcc if kind == "mfcc"
-                        else F.compute_fbank)
+        self._fn = F.compute_mfcc if kind == "mfcc" else F.compute_fbank
         self._jitted: Dict[int, Callable] = {}
 
     def _compiled(self, padded_len: int) -> Callable:

@@ -12,14 +12,13 @@ Reference behavior being reproduced (symbol citations per SURVEY.md):
   - CMVN/deltas/splice: src/feat/feature-functions.{h,cc}
     (SlidingWindowCmn, ComputeDeltas, SpliceFrames), src/transform/cmvn.cc
 
-Design notes (TPU-first, not a port):
+Design notes (not a port):
   * All per-frame work is expressed as batched elementwise ops + matmuls
     over a [num_frames, padded_window] array, so XLA fuses the windowing
-    chain and the DFT/mel/DCT land on the MXU.
-  * The DFT is a pair of matmuls against precomputed cos/sin matrices —
-    for 512-point windows this is both faster on the MXU than an FFT
-    butterfly and exactly what the fused Pallas kernel does; the
-    jnp.fft.rfft path is kept as the numerical cross-check.
+    chain and the mel/DCT projections are matrix products.
+  * The power spectrum is jnp.fft.rfft (the backend's FFT library);
+    ``dft_matrices`` gives the same DFT as two matmuls for
+    cross-checking.
 """
 
 from __future__ import annotations
@@ -160,10 +159,8 @@ def extract_frames(wave: jnp.ndarray, opts: FrameExtractionOptions) -> jnp.ndarr
         # gather-free framing: chop the wave into gcd(ws, sh)-sample
         # blocks; frame t is then `span` consecutive blocks starting at
         # block t*step, i.e. `span` strided row-slices concatenated —
-        # XLA's cost model charges a [T, ws] gather from the wave at
-        # ~size(wave) bytes PER ROW (measured 25 GB "accessed" for 2 MB
-        # of audio, and the gather really was the fbank bottleneck);
-        # slices+concat stream the wave once.
+        # a [T, ws] gather from the wave can read ~size(wave) bytes PER
+        # ROW; slices+concat stream the wave once.
         import math as _math
         g = _math.gcd(ws, sh)
         step, span = sh // g, ws // g
@@ -278,12 +275,11 @@ def lifter_coeffs(num_ceps: int, q: float) -> np.ndarray:
     return (1.0 + 0.5 * q * np.sin(math.pi * i / q)).astype(np.float32)
 
 
-def dft_matrices(padded_window_size: int, pad_bins_to: Optional[int] = None):
-    """Real-DFT as two matmul operands: cos/sin matrices [N, F(+pad)].
+def dft_matrices(padded_window_size: int):
+    """Real-DFT as two matmul operands: cos/sin matrices [N, F].
 
-    power[t, f] = (frames @ C)[t,f]^2 + (frames @ S)[t,f]^2 — the form both
-    the jnp matmul path and the Pallas kernel use (MXU-friendly; replaces
-    src/matrix/srfft.cc SplitRadixRealFft).
+    power[t, f] = (frames @ C)[t,f]^2 + (frames @ S)[t,f]^2 — the DFT
+    of src/matrix/srfft.cc SplitRadixRealFft, written as matmuls.
     """
     n = padded_window_size
     f = n // 2 + 1
@@ -292,9 +288,6 @@ def dft_matrices(padded_window_size: int, pad_bins_to: Optional[int] = None):
     ang = 2.0 * np.pi * k * j / n
     cos = np.cos(ang)
     sin = -np.sin(ang)
-    if pad_bins_to is not None and pad_bins_to > f:
-        cos = np.pad(cos, ((0, 0), (0, pad_bins_to - f)))
-        sin = np.pad(sin, ((0, 0), (0, pad_bins_to - f)))
     return cos.astype(np.float32), sin.astype(np.float32)
 
 

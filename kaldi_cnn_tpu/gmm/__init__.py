@@ -2,9 +2,9 @@
 (flat-start mono -> deltas -> LDA+MLLT -> SAT), which produce the
 alignments the neural AM trains on.
 
-TPU-native re-design of src/gmm/ (DiagGmm, AmDiagGmm, AccumAmDiagGmm,
+JAX re-design of src/gmm/ (DiagGmm, AmDiagGmm, AccumAmDiagGmm,
 MleAmDiagGmmUpdate): scoring is one batched matmul over ALL Gaussians
-of ALL pdfs per utterance (jnp, MXU-friendly) instead of the
+of ALL pdfs per utterance (jnp, one large matmul) instead of the
 reference's per-frame GEMV hot loop (ref: src/gmm/diag-gmm.cc
 DiagGmm::LogLikelihoods); accumulation/update stay on host in numpy
 (offline, small).

@@ -6,7 +6,7 @@ Utterance scoring packs every Gaussian of every pdf into one [G, D]
 bank and computes all frame-vs-Gaussian log-likelihoods with a single
 matmul, then segment-logsumexps per pdf — replacing the reference's
 per-frame, per-pdf GEMV (decodable-am-diag-gmm.cc LogLikelihood) with
-an MXU-shaped batch (SURVEY.md §2 disposition for gmm/).
+one matmul-shaped batch (SURVEY.md §2 disposition for gmm/).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """I/O: wave reading, Kaldi-compatible ark/scp Table I/O, egs datasets.
 
-TPU-native replacement for Kaldi's ``src/util/`` Table I/O
+JAX replacement for Kaldi's ``src/util/`` Table I/O
 (kaldi-table.h SequentialTableReader/RandomAccessTableReader/TableWriter,
 kaldi-io.h extended filenames) and ``src/feat/wave-reader.{h,cc}``.
 The ark/scp formats are bit-compatible with the reference so alignments,

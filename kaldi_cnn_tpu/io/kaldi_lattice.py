@@ -30,7 +30,7 @@ the decoder's state-level ``Lattice`` (ilabel = transition-id per
 frame arc) mirrors fst::ConvertLattice + fst::Factor: linear eps-word
 chains collapse into the word arc's transition-id string.
 
-This lets TPU-emitted lattices be written where ``lattice-best-path``,
+This lets device-emitted lattices be written where ``lattice-best-path``,
 ``lattice-scale`` or sclite pipelines expect ``lat.JOB`` archives, and
 reference-produced archives be read back for differential testing.
 """

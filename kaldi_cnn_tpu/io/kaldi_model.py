@@ -368,11 +368,10 @@ def _read_component(f):
         expect_token(f, "<BiasParams>")
         b = read_fv(f)
         expect_token(f, "</Conv2DComponent>")
-        from kaldi_cnn_tpu.ops.common import pallas_default
         comp = C.Conv2DComponent(
             in_t=vals[0], in_f=vals[1], in_c=vals[2], filt_t=vals[3],
             filt_f=vals[4], num_filters=vals[5], stride_t=vals[6],
-            stride_f=vals[7], use_pallas=pallas_default())
+            stride_f=vals[7])
         return comp, {"w": w, "b": b}
     if tok == "<MaxpoolingComponent>":
         vals = [_read_dim(f, t) for t in

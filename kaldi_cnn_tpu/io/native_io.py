@@ -1,11 +1,11 @@
 """mmap-backed ark Table readers over the native C++ scanner.
 
-TPU-native rework of the reference's Table I/O read path
+A rework of the reference's Table I/O read path
 (ref: src/util/kaldi-table.h SequentialTableReader /
 RandomAccessTableReader, kaldi-table-inl.h): instead of a C++ stream
 parser per process, one native scan (native/tableio.cc kct_ark_index)
 indexes the whole archive and entries are served as zero-copy numpy
-views of a single mmap — the shape that feeds TPU host loading well
+views of a single mmap — the shape that feeds device host loading well
 (bulk, page-cache friendly, no per-entry Python parsing).
 
 Falls back to the pure-Python reader in io/kaldi_io.py when the native

@@ -15,7 +15,7 @@ self-loop-free Ha and running AddSelfLoops after determinization
 phone arc of the already-determinized CLG directly into its HMM fragment
 *including* self-loops.  This is semantically identical (same transition
 ids, same path costs) and simpler; the graphs are marginally larger but
-that cost lands in the decoder, which on TPU is dense/batched anyway.
+that cost lands in the decoder, which on the device is batched anyway.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ trainable transition log-probs with the reference's MLE update
 
 ``TransitionIdToPdf`` — the per-frame lookup in every decode/align
 inner loop — is exported as a dense int32 numpy array
-(``trans_id_to_pdf_array``) that ships to the TPU for on-device
+(``trans_id_to_pdf_array``) that ships to the accelerator for on-device
 decoding (SURVEY.md §2 disposition).
 """
 

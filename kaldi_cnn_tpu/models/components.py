@@ -462,9 +462,9 @@ class Conv2DComponent:
     src/nnet2/nnet-component.cc implemented as patch-gather + GEMM).
 
     Input rows are flattened [in_t, in_f, in_c] volumes; output rows are
-    flattened [out_t, out_f, num_filters].  Forward = im2col + one GEMM
-    (the exact shape the fused Pallas kernel implements; see
-    kaldi_cnn_tpu.ops.conv_pallas).
+    flattened [out_t, out_f, num_filters].  Forward = one XLA
+    convolution, equal to im2col + one GEMM (``extract_patches`` gives
+    the im2col view).
     """
 
     in_t: int
@@ -478,7 +478,6 @@ class Conv2DComponent:
     param_stddev: Optional[float] = None
     max_change: float = 0.75
     trainable: bool = True
-    use_pallas: bool = False
 
     @property
     def out_t(self) -> int:
@@ -525,22 +524,22 @@ class Conv2DComponent:
 
     def _conv_nhwc(self, x: jnp.ndarray, w: jnp.ndarray) -> jnp.ndarray:
         """XLA-native convolution: [N, in_t, in_f, in_c] x HWIO kernel
-        -> [N, out_t, out_f, F].  The MXU path — the im2col gather and
-        especially its scatter-add transpose are ~5x slower on TPU than
-        letting XLA pick the conv algorithm.  w is [K, patch_dim] for
+        -> [N, out_t, out_f, F].  XLA picks the conv algorithm; an
+        im2col gather and especially its scatter-add transpose move far
+        more bytes.  w is [K, patch_dim] for
         any filter count K (the NG update convolves with the rank-R
         preconditioner basis too)."""
         k = w.shape[0]
         kernel = w.reshape(k, self.filt_t, self.filt_f,
                            self.in_c).transpose(1, 2, 3, 0)   # HWIO
         # lax.conv requires matching element types; with bf16-stored
-        # train activations the (f32) weights ride along as bf16 —
-        # exactly what the MXU reads under the trainer's bf16-matmul
-        # default.  The OUTPUT also stays in the input dtype: a f32
+        # train activations the (f32) weights ride along as bf16.  The
+        # OUTPUT also stays in the input dtype: a f32
         # preferred_element_type on bf16 operands breaks the conv's
         # VJP (its transpose would mix a f32 cotangent with bf16
-        # operands, which lax.conv rejects), and the MXU accumulates
-        # in f32 internally regardless — only the final store rounds.
+        # operands, which lax.conv rejects), and the matrix units
+        # accumulate in f32 internally regardless — only the final
+        # store rounds.
         kernel = kernel.astype(x.dtype)
         pref = jnp.float32 if x.dtype == jnp.float32 else None
         return jax.lax.conv_general_dilated(
@@ -560,12 +559,6 @@ class Conv2DComponent:
 
 
     def forward(self, params, x, train=False, key=None):
-        # Always the XLA conv path: measured fastest standalone (3.58 ms
-        # vs 5.83 ms Pallas im2col at mb 4096 on v5e).  ``use_pallas``
-        # instead opts this component into Nnet.predict's FUSED
-        # conv+maxpool Pallas kernel (the variant that beats XLA: 2.39
-        # vs 2.98 ms for the pair) — training stays unfused because the
-        # component backprop chain needs the conv activation.
         n = x.shape[0]
         xi = x.reshape(n, self.in_t, self.in_f, self.in_c)
         y = self._conv_nhwc(xi, params["w"])
@@ -600,14 +593,14 @@ class Conv2DComponent:
         patches), but computing every statistic fused_ng_delta needs
         directly from the compact conv layout:
 
-          G      = dᵀ·patches  → XLA conv-backward-filter (one MXU op)
+          G      = dᵀ·patches  → XLA conv-backward-filter (one op)
           x·u_iᵀ projections   → a conv with the Rᵢ basis rows as filters
           ‖patches‖²           → Σ x²·multiplicity (static weights)
           dᵀd quadratic stats  → one [F, F] Gram GEMM
 
-        The materialized path wrote/re-read a [N·positions, patch] im2col
-        (330 MB at mb 4096) plus three full passes over the 503 MB
-        out-deriv; measured 26 ms of a 33 ms step.  This path is ~4 ms.
+        A materialized path would write and re-read a
+        [N·positions, patch] im2col (330 MB at mb 4096) plus three full
+        passes over the 503 MB out-deriv; this one reads each once.
         """
         from kaldi_cnn_tpu.models.ng_sgd import ng_delta_from_stats
         n = in_value.shape[0]
@@ -676,8 +669,8 @@ class Conv2DComponent:
 class Maxpooling3DComponent:
     """3-D max pooling over (time, freq, channel) — the fork's
     MaxpoolingComponent (per BASELINE.json: 3-D pooling with custom CUDA
-    kernels; here a reshape+max with exact subgradient backprop, and a
-    fused Pallas version in ops/).  Pool sizes must divide the dims."""
+    kernels; here a reshape+max with exact subgradient backprop).  Pool
+    sizes must divide the dims."""
 
     in_t: int
     in_f: int
@@ -686,7 +679,6 @@ class Maxpooling3DComponent:
     pool_f: int = 1
     pool_c: int = 1
     trainable: bool = False
-    use_pallas: bool = False
 
     def __post_init__(self):
         assert self.in_t % self.pool_t == 0
@@ -733,8 +725,6 @@ class Maxpooling3DComponent:
         return (pt * self.pool_f + pf) * self.pool_c + pc
 
     def forward(self, params, x, train=False, key=None):
-        # XLA reshape+max path (fastest standalone); ``use_pallas``
-        # marks the pair for Nnet.predict's fused conv+maxpool kernel
         n = x.shape[0]
         v = self._blocks(x)
         y = v.max(axis=(2, 4, 6))

@@ -50,22 +50,15 @@ class ConvnetConfig:
         return self.in_t * self.in_f * self.in_c
 
 
-def make_convnet(cfg: Optional[ConvnetConfig] = None,
-                 use_pallas: Optional[bool] = None) -> Nnet:
-    """``use_pallas=None`` resolves to the backend default (True on
-    TPU): it opts the conv+pool pair into Nnet.predict's fused Pallas
-    inference kernel; training math is unchanged either way."""
-    from kaldi_cnn_tpu.ops.common import resolve_pallas
-    use_pallas = resolve_pallas(use_pallas)
+def make_convnet(cfg: Optional[ConvnetConfig] = None) -> Nnet:
     cfg = cfg or ConvnetConfig()
     conv = Conv2DComponent(
         in_t=cfg.in_t, in_f=cfg.in_f, in_c=cfg.in_c,
         filt_t=cfg.filt_t, filt_f=cfg.filt_f,
-        num_filters=cfg.num_filters, use_pallas=use_pallas)
+        num_filters=cfg.num_filters)
     pool = Maxpooling3DComponent(
         in_t=conv.out_t, in_f=conv.out_f, in_c=cfg.num_filters,
-        pool_t=cfg.pool_t, pool_f=cfg.pool_f, pool_c=cfg.pool_c,
-        use_pallas=use_pallas)
+        pool_t=cfg.pool_t, pool_f=cfg.pool_f, pool_c=cfg.pool_c)
     comps = [conv, pool]
     dim = pool.output_dim
     for _ in range(cfg.num_hidden_layers):
@@ -83,25 +76,21 @@ def make_convnet(cfg: Optional[ConvnetConfig] = None,
 
 
 def make_convnet_ivector(cfg: Optional[ConvnetConfig] = None,
-                         ivector_dim: int = 16,
-                         use_pallas: Optional[bool] = None) -> Nnet:
+                         ivector_dim: int = 16) -> Nnet:
     """CNN AM with an appended speaker iVector that bypasses the conv
     front end (the Switchboard CNN + online-iVector configuration;
     ref: egs/swbd local/online convnet scripts — the iVector rides
     every input row and joins before the affine stack)."""
     from kaldi_cnn_tpu.models.components import (
         IdentityComponent, SliceParallelComponent)
-    from kaldi_cnn_tpu.ops.common import resolve_pallas
-    use_pallas = resolve_pallas(use_pallas)
     cfg = cfg or ConvnetConfig()
     conv = Conv2DComponent(
         in_t=cfg.in_t, in_f=cfg.in_f, in_c=cfg.in_c,
         filt_t=cfg.filt_t, filt_f=cfg.filt_f,
-        num_filters=cfg.num_filters, use_pallas=use_pallas)
+        num_filters=cfg.num_filters)
     pool = Maxpooling3DComponent(
         in_t=conv.out_t, in_f=conv.out_f, in_c=cfg.num_filters,
-        pool_t=cfg.pool_t, pool_f=cfg.pool_f, pool_c=cfg.pool_c,
-        use_pallas=use_pallas)
+        pool_t=cfg.pool_t, pool_f=cfg.pool_f, pool_c=cfg.pool_c)
     front = SliceParallelComponent(parts=(
         conv, IdentityComponent(ivector_dim)))
     mid = SliceParallelComponent(parts=(

@@ -103,8 +103,7 @@ class OnlineNaturalGradient:
         """(a, c, u) such that x_hat = a*x + ((x @ uᵀ) * c) @ u — the
         factored form of F̂⁻¹, letting callers fuse the preconditioner
         into their gradient contraction without materializing x_hat
-        (the materialized path costs ~2 ms per side per step at
-        minibatch 4096 in HBM traffic alone)."""
+        (an extra [N, dim] write and read per side per step)."""
         u, d, rho = state.u, state.d, state.rho
         dim = u.shape[1]
         tr = jnp.sum(d) + rho * (dim - d.shape[0])
@@ -266,9 +265,7 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
         makes):  ‖Δ‖² = A²‖G‖² + ‖P‖² + ‖Q‖² + 2A⟨P, Gu_iᵀ⟩
         + 2A⟨Q, u_oG⟩ + 2⟨u_oP, Qu_iᵀ⟩ — all O(dim·R) contractions.
 
-    This is the train step's per-step NG overhead reduction (PERF.md
-    §1 binding constraint 2): measured 12.75 -> ~11 ms at mb 4096 on
-    v5e with the state-update period at the reference default.
+    This cuts the train step's per-step NG overhead.
     (ref: nnet-component.cc AffineComponentPreconditionedOnline::Update
     semantics; nnet-precondition-online.cc update factorization.)
     """
@@ -354,11 +351,11 @@ def fused_ng_delta(ng_in: OnlineNaturalGradient,
     per-side rescale, update_period-gated state update from sampled
     rows.  Returns (delta [out, in], new_state_in, new_state_out).
     """
-    # keep x/d in their stored dtype (bf16 on the TPU train path) and
-    # let every contraction accumulate in f32 via preferred_element_type
-    # — an up-front astype(f32) would rewrite both [N, dim] activations
-    # through HBM, which is exactly the traffic this function exists to
-    # avoid.  For f32 inputs all of this is the identity.
+    # keep x/d in their stored dtype (bf16 on the accelerator train
+    # path) and let every contraction accumulate in f32 via
+    # preferred_element_type — an up-front astype(f32) would rewrite
+    # both [N, dim] activations through device memory, which is exactly
+    # the traffic this function exists to avoid.  For f32 inputs all of this is the identity.
     g = jnp.einsum("no,ni->oi", d, x,
                    preferred_element_type=jnp.float32)  # [out, in] GEMM
     p_in = jnp.einsum("ni,ri->nr", x, state_in.u.astype(x.dtype),

@@ -1,18 +1,19 @@
 """Data-parallel training step over a jax.sharding.Mesh.
 
-The TPU-native successor of the reference's data parallelism
+The JAX successor of the reference's data parallelism
 (ref: steps/nnet2/train_*.sh N parallel jobs + nnet2bin/nnet-am-average
 per iteration; theory in Povey et al. ICLR WS 2015):
 
   mode A (default): ONE jitted train step over the global minibatch,
   batch sharded on the ``data`` mesh axis, params/opt replicated.  The
   NG-SGD delta contractions (deriv_hatᵀ @ in_hat) contract over the
-  sharded row dimension, so GSPMD inserts psum over ICI automatically —
+  sharded row dimension, so GSPMD inserts the psum automatically —
   per-step gradient exchange without writing a single collective.
 
   mode B (reference semantics): independent per-device updates with
-  periodic ``average_params`` (= nnet-am-average) — for cross-slice DCN
-  sync or for bitwise-reproducing the reference's training dynamics.
+  periodic ``average_params`` (= nnet-am-average) — for infrequent
+  cross-host sync or for reproducing the reference's training
+  dynamics.
 """
 
 from __future__ import annotations
@@ -38,9 +39,8 @@ def make_dp_step(net: Nnet, mesh: Mesh) -> Callable:
         in_shardings=(repl, repl, shard, shard, shard, repl, repl),
         out_shardings=(repl, repl, repl),
     )
-    # no-weights variant keeps the ones-vector INSIDE the jit: an eager
-    # jnp.ones/asarray here costs a device dispatch per step (see
-    # Nnet.train_step note)
+    # no-weights variant keeps the ones-vector INSIDE the jit, so the
+    # wrapper issues no eager device op (see Nnet.train_step note)
     jitted_nw = jax.jit(
         net._train_step_impl_unweighted,
         in_shardings=(repl, repl, shard, shard, repl, repl),

@@ -1,20 +1,20 @@
-"""Multi-host / multi-slice training driver (the Librispeech-960h
+"""Multi-host / multi-replica training driver (the Librispeech-960h
 configuration).
 
-The TPU-native replacement of the reference's cluster layer
+The JAX replacement of the reference's cluster layer
 (ref: utils/parallel/queue.pl submitting N jobs + per-iteration
 nnet-am-average barrier, SURVEY.md §2.3): one Python process per host,
 ``jax.distributed`` process group, utterance lists sharded per host,
 and a global jit'd train step over a ("replica", "data") mesh:
 
-  - within a replica (= a slice), the batch shards over the ``data``
-    axis and gradients ride ICI via GSPMD-inserted psum (mode A);
+  - within a replica, the batch shards over the ``data`` axis and
+    gradients are summed by a GSPMD-inserted psum (mode A);
   - across replicas, SGD streams are INDEPENDENT — exactly the
     reference's N parallel jobs — synchronized only by a parameter
     mean every ``average_every`` steps (= nnet-am-average, ref:
-    src/nnet2bin/nnet-am-average.cc; Povey et al. ICLR WS 2015).  On a
-    real multi-slice deployment the replica-axis all-reduce rides DCN;
-    XLA inserts it from the sharding annotations alone.
+    src/nnet2bin/nnet-am-average.cc; Povey et al. ICLR WS 2015).  XLA
+    inserts the replica-axis all-reduce from the sharding annotations
+    alone, whether the replicas share a host or not.
 
 With num_replicas == 1 (or average_every == 0) this degenerates to
 mode A on the whole mesh, so the same driver runs everywhere (tested
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from kaldi_cnn_tpu.core.backend import matmul_precision_scope
 from kaldi_cnn_tpu.core.config import configclass
 from kaldi_cnn_tpu.core.logging import MetricsWriter, Timer, get_logger
 from kaldi_cnn_tpu.models.nnet import Nnet
@@ -97,7 +98,7 @@ def make_replica_dp_step(net: Nnet, mesh: Mesh) -> Callable:
 def make_replica_average(mesh: Mesh) -> Callable:
     """The nnet-am-average point: mean over the replica axis,
     broadcast back — GSPMD lowers this to one all-reduce across
-    replicas (DCN on a multi-slice deployment)."""
+    replicas."""
     p_r = NamedSharding(mesh, P("replica"))
 
     def _avg(tree):
@@ -124,24 +125,28 @@ def train_multihost(
     mesh: Optional[Mesh] = None,
     metrics: Optional[MetricsWriter] = None,
     batcher=None,
+    return_replicas: bool = False,
 ):
     """Mesh training loop.  ``num_replicas > 1`` with
     ``average_every > 0`` reproduces the reference's semantics —
     independent streams + periodic parameter averaging; otherwise one
     globally-synchronous stream (mode A).  Per-step objf stays on
     device; the host reads it once per epoch (no per-minibatch
-    device->host sync)."""
+    device->host sync).  ``return_replicas`` (replica mode) returns the
+    averaged params/opt with their leading replica axis instead of
+    replica 0's copy: the one way a caller can see that the final
+    average left every replica identical."""
     cfg = cfg or TrainConfig()
     mh = mh or MultihostConfig()
     mesh = mesh or initialize(mh)
-    from kaldi_cnn_tpu.train.trainer import _matmul_precision_scope
-    with _matmul_precision_scope(cfg):
+    with matmul_precision_scope(cfg.matmul_precision):
         return _train_multihost_impl(net, egs_train, egs_valid, cfg, mh,
-                                     mesh, metrics, batcher)
+                                     mesh, metrics, batcher,
+                                     return_replicas)
 
 
 def _train_multihost_impl(net, egs_train, egs_valid, cfg, mh, mesh,
-                          metrics, batcher):
+                          metrics, batcher, return_replicas):
     from kaldi_cnn_tpu.core.rng import stage_key
     params = net.init(jax.random.PRNGKey(
         int(stage_key(cfg.seed, "init")[1])))
@@ -166,8 +171,8 @@ def _train_multihost_impl(net, egs_train, egs_valid, cfg, mh, mesh,
     # when partition threads of DIFFERENT queued step executions
     # interleave on an oversubscribed host (measured: full-scale runs
     # on the 2-core CI box die on the first all-reduce).  Keeping at
-    # most one step in flight bounds the skew; on TPU the async queue
-    # stays (it is the throughput model).
+    # most one step in flight bounds the skew; on an accelerator the
+    # async queue stays (it is the throughput model).
     throttle = jax.default_backend() == "cpu"
     for epoch in range(cfg.num_epochs):
         ep_objf = jnp.zeros(())     # device accumulator, read per epoch
@@ -205,6 +210,8 @@ def _train_multihost_impl(net, egs_train, egs_valid, cfg, mh, mesh,
                           audio_seconds_per_sec=audio_ss)
     if replica_mode:
         params = average(params)
+        if return_replicas:
+            return params, opt
         params = jax.tree_util.tree_map(lambda x: x[0], params)
         opt = jax.tree_util.tree_map(lambda x: x[0], opt)
     return params, opt

@@ -146,7 +146,7 @@ def run(
         pool_t=2, pool_f=3, pool_c=1,
         num_hidden_layers=2, pnorm_input_dim=800, pnorm_output_dim=160,
         num_pdfs=num_pdfs)
-    net = make_convnet(cfg, use_pallas=None)
+    net = make_convnet(cfg)
     timer.reset()
     tcfg = TrainConfig(num_epochs=nnet_epochs, minibatch_size=256,
                        initial_learning_rate=0.08,
@@ -170,8 +170,8 @@ def run(
                          tid2pdf)
 
     def nnet_decode(vols):
-        # production path: batched TPU top-K lattice decode, utterance
-        # batch sharded over the mesh's data axis (decoder-state
+        # production path: batched on-device top-K lattice decode,
+        # utterance batch sharded over the mesh's data axis (decoder-state
         # parallelism)
         from kaldi_cnn_tpu.decode.topk_decoder import decode_utterances
         lls = am_nnet.loglikes_batch(
@@ -207,5 +207,7 @@ def run(
 
 if __name__ == "__main__":
     import sys
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     res = run()
     sys.exit(0 if res["wer"] < 15.0 else 1)

@@ -110,7 +110,6 @@ def run(
     seed: int = 29,
     nnet_epochs: int = 25,
     metrics: Optional[MetricsWriter] = None,
-    use_pallas_features: Optional[bool] = None,
     corpus=None,
     exp_dir: Optional[str] = None,
     stage: int = 0,
@@ -148,9 +147,9 @@ def run(
                 len(train.waves), len(dev.waves), len(test.waves))
     timer = Timer()
     feats_tr, feats_dev, feats_te = sr.stage("features", lambda: (
-        compute_features(train, use_pallas_features, seed),
-        compute_features(dev, use_pallas_features, seed + 1),
-        compute_features(test, use_pallas_features, seed + 2)))
+        compute_features(train, seed),
+        compute_features(dev, seed + 1),
+        compute_features(test, seed + 2)))
     raw_tr = {u: f[:, :13] for u, f in feats_tr.items()}
     raw_dev = {u: f[:, :13] for u, f in feats_dev.items()}
     raw_te = {u: f[:, :13] for u, f in feats_te.items()}
@@ -241,7 +240,7 @@ def run(
     am_nnet.set_priors_from_counts(counts)
 
     # --- DNN decode (features: fMLLR from the GMM first pass) ------------
-    # through the production batched TPU lattice decoder
+    # through the production batched on-device lattice decoder
     def nnet_decode(raw_set, fmllr_set):
         from kaldi_cnn_tpu.decode.topk_decoder import decode_utterances
         lls = {}
@@ -286,6 +285,8 @@ def run(
 if __name__ == "__main__":
     import argparse
     import sys
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--eval-utts", type=int, default=0,
                     help="dedicated eval corpus size (ledger runs: 800)")

@@ -185,8 +185,7 @@ def run(
         pool_t=2, pool_f=3, pool_c=1,
         num_hidden_layers=2, pnorm_input_dim=800, pnorm_output_dim=160,
         num_pdfs=num_pdfs)
-    net = make_convnet_ivector(cfg, ivector_dim=aux_dim,
-                               use_pallas=None)
+    net = make_convnet_ivector(cfg, ivector_dim=aux_dim)
     assert net.input_dim == egs_train.x.shape[1]
     timer.reset()
     params = sr.stage("nnet_train", lambda: jax.device_get(train_nnet(
@@ -210,7 +209,7 @@ def run(
             x = splice_volume(v, left, right)
             xs[utt] = np.concatenate([x, aux[utt][:x.shape[0]]], axis=1)
         lls = am_nnet.loglikes_batch(params, xs)
-        # production path: batched TPU top-K lattice decode
+        # production path: batched on-device top-K lattice decode
         return decode_utterances(hclg, lls, acoustic_scale=0.1,
                                  beam=60.0, lattice_beam=8.0,
                                  max_active=2000,
@@ -239,6 +238,8 @@ def run(
 if __name__ == "__main__":
     import argparse
     import sys
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--eval-utts-per-speaker", type=int, default=0,
                     help="extra eval utts per speaker (ledger runs: 34)")

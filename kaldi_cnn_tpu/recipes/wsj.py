@@ -6,10 +6,9 @@ driven from egs/wsj/s5/run.sh).
 Pipeline:
   MFCC GMM bootstrap (mono -> tri deltas)        for alignments
   fbank (36 mel bins) + deltas as (t, f, c) volumes
-  Conv2D + Maxpool3D + p-norm stack CNN AM        (the fork's kernels,
-                                                   Pallas-backed)
+  Conv2D + Maxpool3D + p-norm stack CNN AM        (the fork's layers)
   NG-SGD training, prior adjustment
-  lattice decode + rescoring sweep; batched TPU decode for RTF
+  lattice decode + rescoring sweep; batched on-device decode for RTF
 
 Run: ``python -m kaldi_cnn_tpu.recipes.wsj``
 """
@@ -40,20 +39,18 @@ logger = get_logger(__name__)
 
 
 def compute_fbank_volumes(corpus, num_bins: int = 36, seed: int = 0,
-                          use_pallas: Optional[bool] = None
+                          device: Optional[str] = None
                           ) -> Dict[str, np.ndarray]:
     """Per-utterance [T, num_bins, 3] volumes: static + delta + delta2
     channels over mel filterbanks (ref: conf/fbank.conf 36 bins + the
-    convnet scripts' --delta-order=2)."""
-    from kaldi_cnn_tpu.ops.common import resolve_pallas
-    use_pallas = resolve_pallas(use_pallas)
+    convnet scripts' --delta-order=2), extracted on the default device
+    (``device='cpu'`` pins the host)."""
     opts = F.FbankOptions()
     opts.frame_opts.samp_freq = float(corpus.sample_rate)
     opts.frame_opts.dither = 1.0
     opts.mel_opts.num_bins = num_bins
     ex = FeatureExtractor("fbank", opts, bucket_seconds=1.0,
-                          device=None if use_pallas else "cpu",
-                          use_pallas=use_pallas, deltas_order=2)
+                          device=device, deltas_order=2)
     flat = ex.extract_corpus(corpus.waves, stage_key(seed, "fbank_dither"))
     out = {}
     for utt, f in flat.items():
@@ -150,12 +147,11 @@ def run(
     seed: int = 37,
     nnet_epochs: int = 25,
     num_filters: int = 64,
-    use_pallas: Optional[bool] = None,
     metrics: Optional[MetricsWriter] = None,
     corpus=None,
     ext_alignments: Optional[Dict[str, np.ndarray]] = None,
     ext_ali_mdl: Optional[str] = None,
-    tpu_decode: bool = True,
+    device_decode: bool = True,
     exp_dir: Optional[str] = None,
     stage: int = 0,
     noise_std: float = 250.0,
@@ -185,7 +181,7 @@ def run(
     ref: steps/nnet2/get_egs.sh).  Without it the external ark must
     share this run's transition model, which is only true when it was
     produced by an identical bootstrap; max(tid) is validated either
-    way.  tpu_decode: decode dev/test through the batched TpuTopKDecoder
+    way.  device_decode: decode dev/test through the batched TpuTopKDecoder
     (the production path); False falls back to the host lattice
     decoder.  exp_dir/stage: stage-guarded execution — per-stage
     artifacts land under exp_dir and re-running with ``stage=K`` skips
@@ -253,9 +249,9 @@ def run(
     left, right = 5, 5
     timer.reset()
     vol_tr, vol_dev, vol_te = sr.stage("fbank", lambda: (
-        compute_fbank_volumes(train, num_bins, seed, use_pallas),
-        compute_fbank_volumes(dev, num_bins, seed + 1, use_pallas),
-        compute_fbank_volumes(test, num_bins, seed + 2, use_pallas)))
+        compute_fbank_volumes(train, num_bins, seed),
+        compute_fbank_volumes(dev, num_bins, seed + 1),
+        compute_fbank_volumes(test, num_bins, seed + 2)))
     logger.info("fbank volumes in %.1fs", timer.elapsed())
 
     tid2pdf = tri.trans_model.trans_id_to_pdf_array()
@@ -289,15 +285,13 @@ def run(
     logger.info("egs: %d train / %d valid, dim %d",
                 len(egs_train), len(egs_valid), egs_train.x.shape[1])
 
-    from kaldi_cnn_tpu.ops.common import resolve_pallas
-    use_pallas = resolve_pallas(use_pallas)
     cfg = ConvnetConfig(
         in_t=left + 1 + right, in_f=num_bins, in_c=3,
         filt_t=4, filt_f=7, num_filters=num_filters,
         pool_t=2, pool_f=3, pool_c=1,
         num_hidden_layers=2, pnorm_input_dim=1000, pnorm_output_dim=200,
         num_pdfs=num_pdfs)
-    net = make_convnet(cfg, use_pallas=use_pallas)
+    net = make_convnet(cfg)
     assert net.input_dim == egs_train.x.shape[1]
     timer.reset()
     params = sr.stage("nnet_train", lambda: jax.device_get(train_nnet(
@@ -322,8 +316,8 @@ def run(
         lls = am.loglikes_batch(
             ps, {utt: splice_volume(v, left, right)
                  for utt, v in vols.items()})
-        if tpu_decode:
-            # production path: batched TPU top-K beam search with
+        if device_decode:
+            # production path: batched on-device top-K beam search with
             # on-device lattice emission + determinization
             from kaldi_cnn_tpu.decode.topk_decoder import decode_utterances
             return decode_utterances(
@@ -408,8 +402,9 @@ def run(
 
 if __name__ == "__main__":
     import argparse
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pallas", action="store_true")
     ap.add_argument("--data-dir", default=None,
                     help="Kaldi data dir (wav.scp/text/utt2spk); "
                          "default: synthetic corpus")
@@ -443,7 +438,7 @@ if __name__ == "__main__":
         from kaldi_cnn_tpu.core.stages import auto_stage
         stage = (auto_stage(a.exp_dir) if a.stage == "auto"
                  else int(a.stage))
-    res = run(use_pallas=a.pallas, corpus=corpus, ext_alignments=ext,
+    res = run(corpus=corpus, ext_alignments=ext,
               ext_ali_mdl=a.ali_mdl, exp_dir=a.exp_dir, stage=stage,
               eval_utts=a.eval_utts, eval_dnn=a.eval_dnn)
     import sys

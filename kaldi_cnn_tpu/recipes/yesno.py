@@ -28,20 +28,18 @@ from kaldi_cnn_tpu.recipes import synthetic
 logger = get_logger(__name__)
 
 
-def compute_features(corpus, use_pallas: Optional[bool] = None,
-                     seed: int = 0) -> Dict[str, np.ndarray]:
+def compute_features(corpus, seed: int = 0,
+                     device: Optional[str] = None
+                     ) -> Dict[str, np.ndarray]:
     """MFCC + deltas per utterance (ref: steps/make_mfcc.sh +
-    add-deltas in train_mono).  Extraction is bucketed+jitted and
-    pinned to host CPU: the GMM bootstrap consumes features host-side."""
+    add-deltas in train_mono).  Extraction is bucketed+jitted on the
+    default device; ``device='cpu'`` pins it to the host."""
     from kaldi_cnn_tpu.features.extractor import FeatureExtractor
-    from kaldi_cnn_tpu.ops.common import resolve_pallas
-    use_pallas = resolve_pallas(use_pallas)
     opts = F.MfccOptions()
     opts.frame_opts.samp_freq = float(corpus.sample_rate)
     opts.frame_opts.dither = 1.0
     ex = FeatureExtractor("mfcc", opts, bucket_seconds=1.0,
-                          device=None if use_pallas else "cpu",
-                          use_pallas=use_pallas, deltas_order=2)
+                          device=device, deltas_order=2)
     return ex.extract_corpus(corpus.waves, stage_key(seed, "mfcc_dither"))
 
 
@@ -50,7 +48,6 @@ def run(
     num_iters: int = 25,
     totgauss: int = 400,
     seed: int = 17,
-    use_pallas_features: Optional[bool] = None,
     metrics: Optional[MetricsWriter] = None,
     corpus=None,
 ) -> Dict:
@@ -67,9 +64,9 @@ def run(
                 len(train.waves), len(dev.waves), len(test.waves))
 
     timer = Timer()
-    train_feats = compute_features(train, use_pallas_features, seed)
-    dev_feats = compute_features(dev, use_pallas_features, seed + 2)
-    test_feats = compute_features(test, use_pallas_features, seed + 1)
+    train_feats = compute_features(train, seed)
+    dev_feats = compute_features(dev, seed + 2)
+    test_feats = compute_features(test, seed + 1)
     logger.info("features in %.1fs", timer.elapsed())
 
     lang = Lang.create(lex)
@@ -126,8 +123,9 @@ def run(
 if __name__ == "__main__":
     import argparse
     import sys
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pallas", action="store_true")
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--lexicon", default=None)
     a = ap.parse_args()
@@ -135,5 +133,5 @@ if __name__ == "__main__":
     if a.data_dir:
         from kaldi_cnn_tpu.recipes.datadir import corpus_from_data_dir
         corpus = corpus_from_data_dir(a.data_dir, a.lexicon)
-    res = run(use_pallas_features=a.pallas, corpus=corpus)
+    res = run(corpus=corpus)
     sys.exit(0 if res["wer"] == 0.0 else 1)

@@ -1,15 +1,18 @@
-"""Round-5 ledger runs on the real TPU chip, serialized (one TPU
-process at a time).  Produces /tmp/ledger_r05.json consumed when
-regenerating RESULTS.md.
+"""The WER ledger runs behind RESULTS.md, one recipe after another in
+ONE process (a second JAX process on the card would fail for want of
+memory).  Results accumulate in chiprun_out/ledger.json under the
+checkout.
 
-Usage: python scripts/run_ledger_tpu.py [step ...]
+Usage: python scripts/run_ledger.py [step ...]
   steps: wsj rm swbd swbd_pitch librispeech (default: all)
 """
 import json
+import os
 import sys
 import time
 
-OUT = "/tmp/ledger_r05.json"
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "chiprun_out", "ledger.json")
 
 
 def _load():
@@ -21,6 +24,7 @@ def _load():
 
 
 def _save(d):
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(d, f, indent=1, default=str)
 
@@ -33,6 +37,8 @@ def main():
     steps = sys.argv[1:] or ["wsj", "rm", "swbd", "swbd_pitch",
                              "librispeech"]
     import jax
+    from kaldi_cnn_tpu.core.backend import setup_compile_cache
+    setup_compile_cache()
     print("backend:", jax.default_backend(), flush=True)
     out = _load()
     for step in steps:

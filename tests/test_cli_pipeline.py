@@ -150,8 +150,8 @@ def test_online2_wav_latgen_verb(tmp_path, capsys):
     assert cli.main(["mkgraph", p("lang"), p("unigram.arpa"),
                      p("HCLG.txt")]) == 0
     # GMM features are mfcc+deltas == the online pipeline's output, so
-    # the verb streams with no splice; host + tpu streaming paths
-    for tag, extra in (("host", ["--host-decode"]), ("tpu", [])):
+    # the verb streams with no splice; host + device streaming paths
+    for tag, extra in (("host", ["--host-decode"]), ("device", [])):
         assert cli.main([
             "online2-wav-latgen", "--beam=200", "--max-active=0",
             "--acoustic-scale=1.0", f"--lang-dir={p('lang')}",

@@ -59,7 +59,7 @@ def test_dct_matrix_orthonormal():
 
 
 def test_power_spectrum_matches_matmul_dft():
-    """The DFT-as-matmul path (used by the Pallas kernel) must equal rfft."""
+    """The DFT-as-matmul form (dft_matrices) must equal rfft."""
     opts = F.FrameExtractionOptions(dither=0.0)
     wave = jnp.asarray(_tone())
     windowed, _ = F.frame_signal(wave, opts)

@@ -100,13 +100,12 @@ def test_train_step_improves_objf(rng):
 
 
 def test_train_step_bf16_storage_matches_f32(rng):
-    """The TPU train path stores activations/derivatives in bf16
-    (Nnet.train_storage_dtype, backend default on TPU — PERF.md §1's
-    backward-HBM floor halver).  On the conv+pool flagship topology the
-    bf16-stored run must train to the same place as the f32 run: same
-    monotone objf improvement, final objf within a few % (the MXU
-    already reads bf16 under the trainer's precision default, so
-    storage is the only extra rounding)."""
+    """The accelerator train path stores activations/derivatives in
+    bf16 (Nnet.train_storage_dtype; core.backend.backend_policy's
+    default off the CPU — it halves the backward pass's memory floor).
+    On the conv+pool flagship topology the bf16-stored run must train
+    to the same place as the f32 run: same monotone objf improvement,
+    final objf within a few % (storage is the extra rounding)."""
     from kaldi_cnn_tpu.models.factory import ConvnetConfig, make_convnet
 
     cfg = ConvnetConfig(
@@ -115,7 +114,7 @@ def test_train_step_bf16_storage_matches_f32(rng):
         pnorm_input_dim=64, pnorm_output_dim=16, num_pdfs=8)
 
     def run(storage):
-        net = make_convnet(cfg, use_pallas=False)
+        net = make_convnet(cfg)
         net.train_storage_dtype = storage
         params = net.init(jax.random.PRNGKey(7))
         opt = net.init_opt()
@@ -322,7 +321,7 @@ def test_ng_update_period_default_parity(rng):
         pnorm_input_dim=64, pnorm_output_dim=16, num_pdfs=8)
 
     def run(reference_schedule: bool):
-        net = make_convnet(cfg, use_pallas=False)
+        net = make_convnet(cfg)
         if reference_schedule:       # fixed period 4, no warmup
             net.ng_in = OnlineNaturalGradient(rank=net.ng_in.rank,
                                               update_period=4,

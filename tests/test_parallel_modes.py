@@ -120,7 +120,7 @@ def test_train_multihost_single_process(rng):
 def test_train_multihost_replica_mode(rng):
     """num_replicas>1 + average_every>0: independent slice streams with
     REAL cross-replica parameter averaging (the nnet-am-average cadence
-    over the replica mesh axis; VERDICT r1 missing #4)."""
+    over the replica mesh axis)."""
     devices = np.array(jax.devices()[:8]).reshape(2, 4)
     mesh = Mesh(devices, ("replica", "data"))
     net = _net()
@@ -134,6 +134,29 @@ def test_train_multihost_replica_mode(rng):
         MultihostConfig(average_every=3, num_replicas=2), mesh=mesh)
     objf = float(net.objf(params, jnp.asarray(x), jnp.asarray(y)))
     assert objf > np.log(0.3)
+
+
+def test_train_multihost_return_replicas(rng):
+    """return_replicas=True hands back the replica axis: after the final
+    average every replica holds the same finite parameters, and replica
+    0 is what the default return gives."""
+    devices = np.array(jax.devices()[:8]).reshape(2, 4)
+    mesh = Mesh(devices, ("replica", "data"))
+    net = _net()
+    x, y = _data(rng, n=256)
+    egs = Egs(x, y, np.ones(len(y), np.float32))
+    cfg = TrainConfig(num_epochs=2, minibatch_size=128)
+    mh = MultihostConfig(average_every=3, num_replicas=2)
+    params_r, opt_r = train_multihost(net, egs, egs, cfg, mh, mesh=mesh,
+                                      return_replicas=True)
+    params, _ = train_multihost(net, egs, egs, cfg, mh, mesh=mesh)
+    for leaf_r, leaf in zip(jax.tree_util.tree_leaves(params_r),
+                            jax.tree_util.tree_leaves(params)):
+        leaf_r = np.asarray(leaf_r)
+        assert leaf_r.shape[0] == 2 and np.isfinite(leaf_r).all()
+        np.testing.assert_array_equal(leaf_r[0], leaf_r[1])
+        np.testing.assert_array_equal(leaf_r[0], np.asarray(leaf))
+    assert jax.tree_util.tree_leaves(opt_r)[0].shape[0] == 2
 
 
 def test_replica_average_reconciles(rng):

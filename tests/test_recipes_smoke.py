@@ -93,8 +93,8 @@ def test_wsj_cnn_beats_dnn_ledger():
     matched p-norm DNN on identical egs — asserted at full recipe
     scale on the hardened noisy corpus with a DEDICATED >=1000-word
     test set (eval_utts=600 -> ~300 test utts), so the ordering is
-    asserted on EVERY backend, not just TPU, and the delta is checked
-    against its own binomial noise via the matched-pairs sign test
+    asserted on EVERY backend, not just an accelerator, and the delta is
+    checked against its own binomial noise via the matched-pairs sign test
     (decode/score.paired_sign_test)."""
     from kaldi_cnn_tpu.recipes import wsj
     res = wsj.run(eval_dnn=True, eval_utts=600)

@@ -1,4 +1,4 @@
-"""Top-K TPU beam decoder vs host decoder oracle tests (the CPU-vs-GPU
+"""Top-K on-device beam decoder vs host decoder oracle tests (the CPU-vs-GPU
 oracle pattern of SURVEY.md §4), plus graph-scale tests the dense
 decoder cannot pass."""
 
@@ -93,7 +93,7 @@ def test_topk_degree_bounding_does_not_change_result(setup):
 
 
 def test_topk_lattice_matches_host_lattice(setup):
-    """TPU-emitted raw lattice: one-best equals the host lattice
+    """Device-emitted raw lattice: one-best equals the host lattice
     decoder's one-best, and a rescoring sweep tracks it too."""
     hclg, lls = setup
     scale = 0.1

@@ -1,5 +1,6 @@
-"""Batched TPU decoder vs host decoder oracle tests (the CPU-vs-GPU
-oracle pattern of SURVEY.md §4: cudamatrix/cu-*-test.cc)."""
+"""Batched dense device decoder (TpuViterbiDecoder) vs host decoder
+oracle tests (the CPU-vs-GPU oracle pattern of SURVEY.md §4:
+cudamatrix/cu-*-test.cc)."""
 
 import numpy as np
 import pytest
